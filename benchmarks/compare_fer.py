@@ -46,8 +46,8 @@ def main(dirpath):
         c_points = parse_c_results(f)
         m_points = mine.get(cname, {})
         print(f"== {cname} ==")
-        print(f"{'Eb/N0':>6} {'C FER':>10} {'TPU FER':>10} "
-              f"{'C CI':>20} {'TPU CI':>20}  overlap")
+        print(f"{'Eb/N0':>6} {'C FER':>10} {'JAX FER':>10} "
+              f"{'C CI':>20} {'JAX CI':>20}  overlap")
         for ebn0 in sorted(set(c_points) | set(m_points)):
             c = c_points.get(ebn0)
             m = m_points.get(ebn0)

@@ -5,12 +5,12 @@ decorrelated minimum that the reference's dormant ``syndrome_ems2/3``
 specializations (``syndrome_decoder.c:659-1303``) approximate with a
 per-bucket 3-min cache, and pins the dominance relationship — but
 "nobody has measured whether their min3-cache approximation is ever the
-better speed/quality trade on TPU".  This script measures the QUALITY
+better speed/quality trade on the device".  This script measures the QUALITY
 side on channel-realistic message lists (sorted AWGN-BPSK intrinsics at
 waterfall SNRs): how often the cache misses (substituting an optimistic
 min3) and by how much.
 
-The SPEED side is structural, not empirical, on TPU: our exact
+The SPEED side is structural, not empirical: our exact
 decorrelation is ONE vectorized masked-min over the (k+1)-entry bucket
 lists per edge (ops/syndrome_cn.py) — the same sorted packed-key
 machinery the min3 cache would need anyway; a cache would save no sorts,

@@ -1,7 +1,7 @@
 """FER-curve runs for the five BASELINE.json evaluation configs.
 
 Usage:  python benchmarks/fer_curves.py [config_index ...]
-Writes results to ./data/ (text + JSONL).  Heavy: run on TPU.
+Writes results to ./data/ (text + JSONL).  Heavy: run on the GPU.
 """
 import sys
 

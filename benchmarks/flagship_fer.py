@@ -3,7 +3,7 @@
 C reference (essai_ubs `20 10 Declercq_64800_R12_GF256 1.5 32 0.3 64`):
 FER = 12/21 = 0.571, avg_it 9.1 (measured r1; Wilson CI [0.37, 0.76]).
 
-Run on TPU:  python benchmarks/flagship_fer.py [frames]
+Run on the GPU:  python benchmarks/flagship_fer.py [frames]
 """
 import sys
 

@@ -46,7 +46,6 @@ def main(fs):
             st = step_fn(st)
             np.asarray(st[0])
             ts.append(time.perf_counter() - t0)
-        # "frames/s per iter" keeps tpu_queue.sh's success grep happy
         print(f"mode={mode} F={F}: {min(ts):.3f} s/iter "
               f"({F / min(ts):.1f} frames/s per iter) reps="
               f"{['%.3f' % t for t in ts]}", flush=True)

@@ -1,6 +1,6 @@
-"""TPU microbenchmarks for the CN primitive variants.
+"""Microbenchmarks for the CN primitive variants.
 
-Run on the real chip to pick implementations:
+Run on the GPU to pick implementations:
     python benchmarks/microbench.py
 """
 import time

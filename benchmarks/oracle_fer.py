@@ -1,9 +1,9 @@
 """Native-oracle FER on the flagship anchor (EMS_VALIDATION.md section 2).
 
 Runs the exact 8-bubble C++ oracle (csrc/nbldpc_core.cpp, OpenMP over
-frames) on framework-generated BPSK-AWGN LLRs — the same channel the TPU
-list-EMS measurement uses — so the oracle column of EMS_VALIDATION can be
-given statistics matching the TPU column (round-2 VERDICT weak item 4).
+frames) on framework-generated BPSK-AWGN LLRs — the same channel the
+framework's list-EMS measurement uses — so the oracle column of
+EMS_VALIDATION can be given statistics matching the framework column (round-2 VERDICT weak item 4).
 
 Usage: python benchmarks/oracle_fer.py [matrix] [ebn0] [frames] [seed]
 """

@@ -1,11 +1,10 @@
 // Native host-side NB-LDPC core: GF tables, layered bubble-check EMS decoder.
 //
-// Role in the TPU framework (mirrors the reference's native runtime, but as a
+// Role in the framework (mirrors the reference's native runtime, but as a
 // clean-room C++ implementation):
-//   * fast behavioral oracle for the Pallas/XLA kernels (same algorithm as
+//   * fast behavioral oracle for the JAX decoders (same algorithm as
 //     ems_nbldpc_tpu/golden.py, orders of magnitude faster, double precision)
-//   * self-measured single-core baseline for bench comparisons
-//   * CPU fallback decode path callable from Python via ctypes
+//   * a CPU oracle callable from Python via ctypes, off the main path
 //
 // Algorithm: layered EMS with nm-truncated sorted messages and the 8-bubble
 // elementary check operator with an nbOper candidate budget — the behavior of

@@ -1,12 +1,12 @@
-"""TPU-native NB-LDPC EMS simulation & decoding framework.
+"""NB-LDPC EMS simulation & decoding framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 Lab-STICC/UBS C reference EMS decoder (Lcrypto/EMS-decoder-of-NB-LDPC-codes):
 GF(2^m) arithmetic, parity-check loading (KN/UBS/alist), Gaussian-elimination
 encoding, AWGN/QAM/APSK channels with intrinsic-LLR demapping, and Extended
 Min-Sum message passing (dense and nm-truncated, bubble-check-equivalent)
 with flooding and layered schedules — all batched over thousands of frames
-per chip and sharded over TPU meshes for Monte-Carlo FER sweeps.
+per device and sharded over device meshes for Monte-Carlo FER sweeps.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,8 @@
 """Decoder front-end: configuration + dispatch.
 
 Knobs mirror the reference CLI contract (``NB_LDPC.c:105-111``): iteration
-budget, nm truncation, offset, plus TPU-native choices (schedule, CN
-backend, dtype).
+budget, nm truncation, offset, plus this framework's own choices
+(schedule, CN backend, dtype).
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ class DecoderConfig:
     #                             Honored by the list-CN path (storage=
     #                             "compressed"); dense paths are budget-free.
     cn_impl: str = "auto"       # elementary-step impl: dense | topk | list
-    #                             | pallas | auto | bubble | lbubble (the
+    #                             | auto | bubble | lbubble (the
     #                             last two: EXACT sequential 8-bubble /
     #                             L-bubble emulation at the nboper budget —
     #                             a validation tool, see ops/bubble_cn.py)
@@ -56,8 +56,7 @@ def decode(code_or_graph, intrinsic, cfg: DecoderConfig):
     Returns (decide [F, N] int32, iters [F] int32, converged [F] bool).
     """
     if cfg.loop not in ("device", "host"):
-        # a typo'd loop value would silently select the device while_loop —
-        # the exact crash-prone path host-loop callers exist to avoid
+        # a typo'd loop value would silently select the device while_loop
         raise ValueError(
             f"loop={cfg.loop!r}: expected 'device' or 'host'"
         )

@@ -3,7 +3,7 @@
 One iteration updates *all* M check nodes from the previous iteration's
 messages — the maximally parallel schedule (the reference's layered loop at
 ``NB_LDPC.c:313-472`` is the serial special case; see layered.py for the
-TPU super-layer version).  All tensors are ``[F, ..., q]`` with F = frames.
+super-layer version).  All tensors are ``[F, ..., q]`` with F = frames.
 
 Early termination: the per-frame syndrome check (``NB_LDPC.c:468-471``,
 ``tools.c:284-299``) becomes a convergence mask; decisions latch at the first
@@ -70,7 +70,7 @@ def syndrome_ok(g: DeviceGraph, decide):
     """[F, N] hard decisions -> [F] bool all-checks-satisfied.
 
     u_e = h_e * decide[col_e] via the rotation permutation; XOR-reduce per
-    row (GF add = XOR in poly rep).  TPU-native ``Syndrom`` (tools.c:284-299).
+    row (GF add = XOR in poly rep).  Batched ``Syndrom`` (tools.c:284-299).
     """
     sym = decide[:, g.edge_col]                              # [F, E]
     u = g.rotplan.apply_indices(sym[..., None], "in")[..., 0]
@@ -128,16 +128,6 @@ def checknode(g: DeviceGraph, vtoc, nm: int, offset: float, cn: str,
         mcv_rows = syndrome_checknode(
             vals, gfs, q, offset=offset, **(syn or {})
         )
-    elif cn_impl == "pallas":
-        from ..ops.pallas_cn import fb_checknode_pallas
-
-        if valid is not None:
-            neutral = delta_message(vr_rows.shape[:-1], q, vr_rows.dtype)
-            vr_rows = jnp.where(valid[..., None], vr_rows, neutral)
-        fr, m, dc = vr_rows.shape[:3]
-        mcv_rows = fb_checknode_pallas(
-            vr_rows.reshape(fr * m, dc, q), nm
-        ).reshape(vr_rows.shape)
     elif cn_impl in ("bubble", "lbubble"):
         # EXACT sequential bubble emulation (validation tool, not a
         # throughput path — see ops/bubble_cn.py)

@@ -19,7 +19,7 @@ class RotationPlan:
     """Coefficient-grouped static lane permutations for GF rotations.
 
     A per-edge rotation by coefficient h is a lane permutation; applying a
-    *different* permutation per row is a per-row gather (slow on TPU), but
+    *different* permutation per row is a per-row gather, but
     codes use only a handful of distinct coefficients, so: sort positions
     by coefficient (a batch-axis gather — cheap), apply one *shared* static
     permutation per group (compiles to plain data movement), and un-sort.
@@ -77,16 +77,17 @@ class RotationPlan:
 
         import jax.numpy as jnp
 
-        # auto policy: grouped static perms win when there are few
-        # coefficient groups; with many groups the slice/concat overhead
-        # exceeds a single per-position gather (measured end-to-end).
+        # auto policy: grouped static perms for few coefficient groups; with
+        # many groups the slice/concat overhead exceeds a single
+        # per-position gather.  The 24-group threshold was tuned on another
+        # device and is unmeasured on the H100.
         if mode is None:
             mode = os.environ.get("NBLDPC_ROT", "auto")
         if mode == "auto":
             mode = "grouped" if len(self.bounds) <= 24 else "gather"
         if mode == "matmul":
-            # one-hot permutation matmul per coefficient group: rides the
-            # MXU instead of the gather unit (bf16 0/1 operands are exact)
+            # one-hot permutation matmul per coefficient group: a matrix
+            # product instead of a gather (bf16 0/1 operands are exact)
             perms = self.perm_in if direction == "in" else self.perm_out
             xs = x[:, self.sort_idx]
             parts = []

@@ -3,7 +3,7 @@ histograms.
 
 The reference carries a dormant ``stat_bubble`` instrumentation array that
 histograms which bubble position produced each elementary-step output
-(``NB_LDPC.c:159-164,517-556``).  The TPU analog: in the truncated combine
+(``NB_LDPC.c:159-164,517-556``).  The batched analog: in the truncated combine
 ``out[s] = min_j Bv[j] + A[s ^ Bg[j]]``, record which *rank* ``j`` of the
 truncated side won each output symbol.  The rank histogram tells you how
 big ``nm`` really needs to be — exactly what bubble statistics were for.

@@ -1,4 +1,4 @@
-"""Galois-field GF(2^m) arithmetic for the TPU NB-LDPC framework.
+"""Galois-field GF(2^m) arithmetic for the NB-LDPC framework.
 
 Design
 ------
@@ -8,7 +8,7 @@ representation*: symbol ``0`` is the zero element and symbol ``k >= 1`` is
 images (``init.c:37-53``), multiplication is exponent arithmetic
 (``init.c:65-88``).
 
-A TPU-native design wants GF addition to be *free*.  We therefore use the
+A batched, data-parallel design wants GF addition to be *free*.  We therefore use the
 **polynomial (binary-image) representation** internally: a field element is an
 integer in ``[0, q)`` whose bits are its coordinates over GF(2).  Then
 

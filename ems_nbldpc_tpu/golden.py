@@ -4,7 +4,7 @@ A from-scratch, readable re-implementation of the *algorithm* of
 ``/root/reference/NB_LDPC.c:313-472`` + ``bubble_decoder.c`` (layered
 schedule, nm-truncated sorted messages, 8-bubble elementary check with an
 nbOper budget, offset-saturated dense expansion), used as the behavioral
-oracle for the TPU kernels and for FER-parity tests against the C binary.
+oracle for the batched JAX decoders and for FER-parity tests against the C binary.
 Works in the framework's polynomial representation (GF add = XOR); the
 reference's ADDGF table is the same operation through its power-rep tables.
 
@@ -243,3 +243,96 @@ def _div_table(gf):
         t[:, 1:] = gf.mul_table[:, gf.inv(hs)]
         _div_cache[gf.q] = t
     return _div_cache[gf.q]
+
+
+# ---------------------------------------------------------------------------
+# Plain references for the data-parallel check nodes (ops/fht.py,
+# ops/listcn.py): same semantics, no shared code.
+# ---------------------------------------------------------------------------
+
+
+def xor_convolve(p: np.ndarray, r: np.ndarray) -> np.ndarray:
+    """out[..., s] = sum_a p[..., a] * r[..., a ^ s] by enumeration
+    (float64; q^2 products per pair)."""
+    q = p.shape[-1]
+    a = np.arange(q)
+    rx = r[..., a[None, :] ^ a[:, None]]                 # [..., s, a]
+    return np.einsum("...a,...sa->...s", p.astype(np.float64), rx)
+
+
+def spa_checknode_ref(cost: np.ndarray) -> np.ndarray:
+    """Exact SPA check node on rotated min-cost messages [..., dc, q]:
+    each slot's output is the XOR convolution of the other slots'
+    probabilities, returned as min-normalized float64 costs."""
+    c = cost.astype(np.float64)
+    p = np.exp(-(c - c.min(axis=-1, keepdims=True)))
+    p /= p.sum(axis=-1, keepdims=True)
+    dc = c.shape[-2]
+    outs = []
+    for i in range(dc):
+        others = [j for j in range(dc) if j != i]
+        acc = p[..., others[0], :]
+        for j in others[1:]:
+            acc = xor_convolve(acc, p[..., j, :])
+        outs.append(acc / acc.sum(axis=-1, keepdims=True))
+    out = -np.log(np.maximum(np.stack(outs, axis=-2), 1e-300))
+    return out - out.min(axis=-1, keepdims=True)
+
+
+def list_merge_ref(av, ag, bv, bg, nm: int, nboper: int, big: float):
+    """nbOper-budgeted truncated-list merge of one row pair, by enumeration.
+
+    Candidates (i, j) with (i+1)(j+1) <= nboper are examined in ascending
+    (value, GF) order with GF dedup; values are quantized to bf16 like the
+    device's packed sort keys.  Returns (vals [nm], gfs [nm]); unfilled
+    slots carry ``big``.
+    """
+    from ml_dtypes import bfloat16
+
+    cands = []
+    for i in range(len(av)):
+        for j in range(len(bv)):
+            if (i + 1) * (j + 1) <= nboper:
+                s = min(np.float32(av[i]) + np.float32(bv[j]), np.float32(big))
+                v = float(np.float32(s).astype(bfloat16))
+                cands.append((v, int(ag[i]) ^ int(bg[j])))
+    cands.sort()
+    out_v, out_g, seen = [], [], set()
+    for v, g in cands:
+        if g in seen or v >= big:
+            continue
+        seen.add(g)
+        out_v.append(v)
+        out_g.append(g)
+        if len(out_v) == nm:
+            break
+    ov = np.full(nm, big)
+    og = np.zeros(nm, np.int64)
+    ov[: len(out_v)] = out_v
+    og[: len(out_g)] = out_g
+    return ov, og
+
+
+def list_checknode_ref(bv, bg, nm: int, nboper: int, big: float):
+    """Forward/backward truncated-list check node of one row
+    (``CheckPassLogEMS`` association, bubble_decoder.c:166-227) built from
+    :func:`list_merge_ref`.  bv/bg: [dc, nm] rotated sorted input lists;
+    returns (ov, og) [dc, nm]."""
+    dc = len(bv)
+
+    def merge(a, b):
+        return list_merge_ref(a[0], a[1], b[0], b[1], nm, nboper, big)
+
+    ins = [(bv[t], bg[t]) for t in range(dc)]
+    fwd = [ins[0]]
+    for t in range(1, dc - 1):
+        fwd.append(merge(fwd[-1], ins[t]))
+    bwd = [ins[dc - 1]]                       # bwd[k]: slots dc-1-k..dc-1
+    for t in range(dc - 2, 0, -1):
+        bwd.append(merge(bwd[-1], ins[t]))
+    bwd = bwd[::-1]                           # bwd[i]: slots i+1..dc-1
+    outs = [bwd[0]]
+    outs += [merge(fwd[i - 1], bwd[i]) for i in range(1, dc - 1)]
+    outs.append(fwd[-1])
+    return (np.stack([o[0] for o in outs]),
+            np.stack([o[1] for o in outs]))

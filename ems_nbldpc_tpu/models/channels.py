@@ -11,14 +11,17 @@ Reference behaviors reproduced (see ``/root/reference/channel.c``):
   Rayleigh fading, per-component SSD fading and symbol erasures
   (``channel.c:588-594,648-672``).
 
-TPU-first demapping: the BPSK cost expands to an affine function of the bit
-image, so the whole demapper is one MXU matmul::
+Demapping as matrix products: the BPSK cost expands to an affine function
+of the bit image, so the whole demapper is one matmul::
 
     cost[g] = C + (2/sigma^2) * sum_b y_b * bit_b(g)
 
 (the constant C cancels under min-normalization).  2-D/4-D constellations use
 the gram trick ``|y - x_g|^2 = |y|^2 - 2 y.x_g + |x_g|^2`` — again a matmul
-against the constellation table.
+against the constellation table.  These f32 products run at
+``Precision.HIGHEST``: left at the default a GPU takes them in TF32, which
+keeps about 3 decimal digits of costs that reach ~50; the operands are
+[q x m]-sized, so full precision costs nothing.
 
 Symbols use the framework's polynomial representation: bit b of symbol g is
 bit b of the integer g (LSB first), replacing the reference's BINGF lookup.
@@ -33,6 +36,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..gf import get_gf
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +98,8 @@ def intrinsic_from_bpsk(y, q: int, sigma: float):
     """
     bmat = jnp.asarray(bit_matrix(q), dtype=y.dtype)              # [q, m]
     lin = (2.0 / (sigma * sigma)) * jnp.einsum(
-        "...b,gb->...g", y, bmat, preferred_element_type=jnp.float32
+        "...b,gb->...g", y, bmat, precision=HIGHEST,
+        preferred_element_type=jnp.float32,
     )
     return lin - jnp.min(lin, axis=-1, keepdims=True)
 
@@ -249,10 +255,17 @@ def channel_2d(key, cw, q: int, sigma: float, spec: ChannelSpec,
         att = jnp.where(er, 0.0, att / np.sqrt(1.0 - spec.erasure_prob))
 
     y = att * x + noise
-    # cost[g] = |y - att*x_g|^2 / (2 sigma^2); with fading the receiver knows
-    # att (coherent detection, as in the reference) so the candidate points
-    # are att-scaled too.
-    xg = att[..., None, :] * pts[None, None, :, :]                # [F,N,q,2]
+    return demap_2d(y, att, pts, sigma)
+
+
+def demap_2d(y, att, pts, sigma):
+    """cost[g] = |y - att*x_g|^2 / (2 sigma^2), min-normalized.
+
+    With fading the receiver knows att (coherent detection, as in the
+    reference) so the candidate points are att-scaled too.
+    y, att: [..., 2]; pts: [q, 2].
+    """
+    xg = att[..., None, :] * pts                                  # [...,q,2]
     d2 = jnp.sum((y[..., None, :] - xg) ** 2, axis=-1)
     cost = d2 / (2.0 * sigma * sigma)
     return cost - jnp.min(cost, axis=-1, keepdims=True)
@@ -314,9 +327,7 @@ def qam256_4d(key, cw, sigma: float, spec: ChannelSpec, dtype=jnp.float32):
     receiver knows the fades (coherent, per-dimension gating
     channel.c:884-906).
 
-    TPU-first: with per-dim fades the squared distance expands to
-    ``|a·y|·const − 2 (a⊙y)·x_g + (a⊙a)·(x_g⊙x_g)`` — two matmuls
-    against the [256, 4] table instead of a [F, N, 256, 4] broadcast.
+    The demapper is :func:`demap_4d`.
     """
     cand = jnp.asarray(constellation_4d(spec.labeling, spec.rotated),
                        dtype=dtype)                               # [256, 4]
@@ -332,12 +343,21 @@ def qam256_4d(key, cw, sigma: float, spec: ChannelSpec, dtype=jnp.float32):
     if spec.erasure_prob > 0.0:              # receiver-side only (quirk)
         er = jax.random.bernoulli(kerase, spec.erasure_prob, x.shape)
         att = jnp.where(er, 0.0, att / np.sqrt(1.0 - spec.erasure_prob))
-    ay = att * y
-    a2 = att * att
-    cross = jnp.einsum("...d,gd->...g", ay, cand,
+    return demap_4d(y, att, cand, sigma)
+
+
+def demap_4d(y, att, cand, sigma):
+    """cost[g] = |y - att*x_g|^2 / (2 sigma^2), min-normalized.
+
+    With per-dim fades the squared distance expands to
+    ``|a·y|·const − 2 (a⊙y)·x_g + (a⊙a)·(x_g⊙x_g)`` — two matmuls against
+    the [256, 4] table instead of a [F, N, 256, 4] broadcast.
+    y, att: [..., 4]; cand: [q, 4].
+    """
+    cross = jnp.einsum("...d,gd->...g", att * y, cand, precision=HIGHEST,
                        preferred_element_type=jnp.float32)
-    pw = jnp.einsum("...d,gd->...g", a2, cand * cand,
-                    preferred_element_type=jnp.float32)
+    pw = jnp.einsum("...d,gd->...g", att * att, cand * cand,
+                    precision=HIGHEST, preferred_element_type=jnp.float32)
     cost = (pw - 2.0 * cross) / (2.0 * sigma * sigma)
     return cost - jnp.min(cost, axis=-1, keepdims=True)
 

@@ -13,7 +13,7 @@ Canonical conventions (SURVEY.md §7.3 item 5):
   best entry is 0,
 * parity-check coefficients are poly-rep; the per-edge "rotation" of a dense
   ``[q]`` message by coefficient ``h`` is the precomputed permutation
-  ``rot[s] = h * s`` (the TPU-native equivalent of the MULGF/DIVGF loops at
+  ``rot[s] = h * s`` (the table-free equivalent of the MULGF/DIVGF loops at
   ``/root/reference/bubble_decoder.c:133-152,231-254``).
 """
 from __future__ import annotations

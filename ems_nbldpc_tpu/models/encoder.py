@@ -1,14 +1,14 @@
 """GF(q) encoder: host-side Gaussian elimination + batched device encoding.
 
 The reference encodes one frame at a time by back-substitution through a
-dense upper-triangular matrix (``/root/reference/tools.c:151-268``).  On TPU
-the same linear-algebraic object is exposed three ways:
+dense upper-triangular matrix (the reference's ``tools.c:151-268``).
+Here the same linear-algebraic object is exposed three ways:
 
 * ``Encoder.encode_np``   — vectorized NumPy back-substitution (golden model,
   also fine for small batches).
 * ``Encoder.bit_generator`` — the encoding map as a **binary matrix** over the
   bit image: ``parity_bits = info_bits @ P mod 2``.  GF(2^m)-linear maps are
-  GF(2)-linear on binary images, so the whole encoder becomes one MXU matmul
+  GF(2)-linear on binary images, so the whole encoder becomes one matmul
   (int8/bf16 inputs, f32/int32 accumulation, mod 2).  This is the production
   device path.
 * zero-codeword mode lives in the simulator (valid for symmetric channels).
@@ -27,11 +27,8 @@ import os
 import numpy as np
 
 from ..gf import GF
+from ..utils.cache import ENCODER_CACHE_DIR as CACHE_DIR
 from .code import NBCode
-
-CACHE_DIR = os.environ.get(
-    "NBLDPC_CACHE_DIR", os.path.join(os.path.expanduser("~"), ".cache", "nbldpc_tpu")
-)
 
 
 def _code_digest(code: NBCode) -> str:
@@ -71,7 +68,7 @@ class Encoder:
         cw[..., self.perm] = nsymb
         return cw
 
-    # ---- binary generator for the MXU path ----
+    # ---- binary generator for the device matmul path ----
     @functools.cached_property
     def bit_generator(self) -> np.ndarray:
         cache = os.path.join(

@@ -80,6 +80,35 @@ def write_ubs(parsed: ParsedMatrix, path: str):
             f.write(" ".join(map(str, gf.poly_to_power[v])) + " \n")
 
 
+def parsed_from_code(code) -> ParsedMatrix:
+    """Inverse of ``models.code.from_parsed``: an NBCode's rows as a
+    ParsedMatrix, ready for the writers above."""
+    rows = range(code.m_rows)
+    return ParsedMatrix(
+        code.n, code.m_rows, code.q,
+        [code.row_cols[r, : code.row_deg[r]] for r in rows],
+        [code.row_coefs[r, : code.row_deg[r]] for r in rows],
+    )
+
+
+def write_generated_alist(path: str, n: int, m: int, q: int, dv: int = 2,
+                          seed: int = 1):
+    """Build the seeded ``random_regular`` code and write it as an alist
+    that ``cli.py --matrix <path>`` reads back.  Returns the NBCode.
+
+    ``(8100, 4050, 256, dv=2, seed=1)`` is the DVB-T2 R=1/2 GF(256) shape
+    (64800 bits, dv=2, dc=4) the benchmark and ``chip_smoke.py`` run.
+    """
+    import os
+
+    from .code import random_regular
+
+    code = random_regular(n, m, q, dv=dv, seed=seed)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    write_alist(parsed_from_code(code), path)
+    return code
+
+
 def convert(src: str, dst: str, fmt: str = "auto"):
     """File-to-file conversion; output format chosen by dst extension
     (.alist -> alist, anything else -> UBS)."""

@@ -1,7 +1,7 @@
 """Sum-product (belief propagation) check node via fast Hadamard transform.
 
-Not in the C reference (which is min-sum/EMS only) — a TPU-native bonus
-decoder: over GF(2^m), the check-node convolution over the XOR group
+Not in the C reference (which is min-sum/EMS only) — a bonus decoder that
+suits matrix hardware: over GF(2^m), the check-node convolution over the XOR group
 diagonalizes under the Walsh-Hadamard transform, so the exact sum-product
 CN is
 
@@ -9,7 +9,7 @@ CN is
 
 with the partial products computed by a forward/backward sweep (no unstable
 division).  The WHT of a length-q vector is one q x q +-1 matrix multiply —
-pure MXU work, in contrast to the gather-heavy min-sum path.  FER of SPA
+pure matrix-unit work, in contrast to the gather-heavy min-sum path.  FER of SPA
 upper-bounds every EMS variant, so this is both the quality ceiling and the
 throughput showcase.
 
@@ -31,12 +31,12 @@ from .minconv import delta_message
 _LOG_EPS = 60.0  # cost clamp: exp(-60) ~ 1e-26 keeps WHT well-conditioned
 
 # The WHT is a sum of q same-magnitude terms with massive cancellation in
-# the inverse direction: out_p ~ 1/q * sum of O(1) terms.  TPU matmuls
-# default to bfloat16 accumulation-input precision, which destroys the
-# small probabilities entirely (measured: the flagship GF(256) decode
-# stops converging at all).  Force >= 3-pass (float32-equivalent) matmul
-# precision; "butterfly" uses log2(q) add/sub stages on the VPU instead
-# (exact f32, no MXU).
+# the inverse direction: out_p ~ 1/q * sum of O(1) terms.  Reduced-precision
+# matmul inputs (bf16; TF32 on a GPU at the default precision) destroy the
+# small probabilities (with bf16 the flagship GF(256) decode stops
+# converging at all), so the default is Precision.HIGHEST, true fp32;
+# "butterfly" uses log2(q) elementwise add/sub stages instead (exact f32,
+# no matmul).
 _WHT_IMPL = os.environ.get("NBLDPC_WHT", "matmul")
 _WHT_PRECISION = jax.lax.Precision(
     os.environ.get("NBLDPC_WHT_PRECISION", "highest")
@@ -151,21 +151,17 @@ def grouped_wht(x: jax.Array, rotplan, gf, direction: str) -> jax.Array:
 
     NBLDPC_SPA_GROUPED selects the lowering (same math either way):
       - "concat": one ragged einsum per group + concat.  Fine for few
-        groups, but a code like Ahmed_64800_R910_GF256 has 33 distinct
+        groups; a code like Ahmed_64800_R910_GF256 has 33 distinct
         coefficients -> ~34 tiny matmuls + 34-part concats per direction
-        per layer (the round-3 Ahmed SPA slowdown).
+        per layer.
       - "blocked": ONE batched einsum — positions sorted by coefficient
         are padded into fixed-size blocks, each block contracting against
         its own fused-Hadamard matrix gathered from a per-code stack
         (the grouped-GEMM / MoE dispatch pattern).
-      - "auto" (default): concat — SETTLED by the round-5 on-device
-        same-window A/B (benchmarks/results_r5/queue.log ahmed_probe
-        spa arms): at the 33-group Ahmed shape, where blocked was
-        hypothesized to win, concat measures 0.187 s/iter vs blocked's
-        0.202 (-7.4%); XLA handles the ragged einsum+concat chain better
-        than the padded gather.  The round-3 "Ahmed SPA slowdown" that
-        motivated blocked was a degraded device window, not the concat
-        lowering.  blocked stays as an explicit knob.
+      - "auto" (default): concat, which measured faster than blocked at
+        the 33-group shape on the device it was first tuned on; the
+        choice is unmeasured on the H100.  blocked stays as an explicit
+        knob.
     """
     mode = os.environ.get("NBLDPC_SPA_GROUPED", "auto")
     if mode == "auto":
@@ -186,7 +182,7 @@ def grouped_wht(x: jax.Array, rotplan, gf, direction: str) -> jax.Array:
     return xs[:, rotplan.unsort_idx]
 
 
-_BLOCK = 8  # positions per block; TPU sublane count
+_BLOCK = 8  # positions per block
 
 
 def _blocked_layout(rotplan):
@@ -227,7 +223,7 @@ def blocked_wht(x: jax.Array, rotplan, gf, direction: str) -> jax.Array:
     matrices, same contraction, float-associativity aside): positions are
     ordered by coefficient, padded to _BLOCK-multiples per group, and each
     block contracts against its own fused-Hadamard matrix — 'fbkv,buv'
-    lowers to one batched GEMM on the MXU, with no per-group slices or
+    lowers to one batched GEMM, with no per-group slices or
     concats regardless of how many distinct coefficients the code has.
     """
     vocab = tuple(sorted(set(rotplan.group_coefs)))

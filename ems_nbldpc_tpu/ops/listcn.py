@@ -1,6 +1,6 @@
 """Truncated-list EMS check node — sorted (value, GF) lists end to end.
 
-This is the TPU-native redesign of the reference's actual hot path: the
+This is the data-parallel redesign of the reference's actual hot path: the
 nm-truncated F/B check node of ``/root/reference/bubble_decoder.c:72-593``
 (and the v2 program's truncated-output variant,
 ``EMS_HS_L-BubbleCheck_UBS_decoder_v2.c:1732-1876``).  The reference
@@ -10,7 +10,7 @@ is a *data-parallel selection*:
 
   1. build all na*nb candidate sums / XORs (the full ``tab_aux`` the bubble
      check only samples, ``bubble_decoder.c:384-423``),
-  2. one vectorized sort by value (XLA's in-VMEM lane sort),
+  2. one vectorized sort by value,
   3. examine the first W candidates in ascending order with GF dedup —
      exactly the reference's nbOper budget semantics, W = nbOper — via a
      W x W "seen earlier" mask,
@@ -19,7 +19,7 @@ is a *data-parallel selection*:
 With W >= na*nb this is the *exact* top-nm-distinct merge (an upper bound
 on every bubble trajectory); with W = nbOper it reproduces the reference's
 truncation structure.  Everything is sorts + elementwise int/float ops:
-no gathers, no per-row dynamic indexing — the formulation the VPU wants.
+no gathers, no per-row dynamic indexing.
 
 GF rotation of id lists uses the GF(2)-linearity of multiplication:
 ``h*g = XOR_b bit_b(g) * (h * 2^b)`` — logq selects + XORs per element
@@ -39,15 +39,15 @@ from .minconv import INF, scatter_topk_dense
 
 # value assigned to deduplicated / unfilled slots; must sort after every
 # real LLR but stay far from f32/bf16 saturation when offsets are added
-BIG = jnp.float32(1e9)
+BIG = np.float32(1e9)
 
 
 def _sort1(x):
     """Single-operand last-axis sort, optionally on a flattened batch.
 
     NBLDPC_LISTSORT=flat reshapes [..., w] to [prod(batch), w] around the
-    sort: XLA's TPU sort tiles 2-D operands more predictably than 4-D+
-    ones (the F=256 layout pathology, benchmarks/NOTES.md round 3).
+    sort (a layout choice for sorts of 4-D+ operands; unmeasured on the
+    H100).
     """
     if os.environ.get("NBLDPC_LISTSORT", "native") != "flat" or x.ndim <= 2:
         return jax.lax.sort(x)
@@ -102,8 +102,7 @@ def topk_list(dense: jax.Array, nm: int):
     produce ascending (vals, ids)):
       - "sort" (default): full packed-key lane sort, slice nm.
       - "topk": ``lax.top_k`` on the negated packed key — EXACT same
-        result; lowers to the TPU PartialReduce custom call instead of a
-        full bitonic sort.
+        result through a top-k selection instead of a full sort.
       - "approx": ``lax.approx_min_k`` (recall ~0.95) on the f32 values —
         approximate (can miss a true top-nm entry); experimental turbo
         mode, NOT used for parity claims.
@@ -228,7 +227,7 @@ def list_combine(
                      constant_values=0x7FFFFFFF)
     if os.environ.get("NBLDPC_LIST_CNSEL", "sort") == "topk":
         # only the best nm of the ~nboper*ln(nm) candidates are kept:
-        # top_k (TPU PartialReduce) instead of a full sort — bit-identical
+        # top_k instead of a full sort — bit-identical
         k2 = -jax.lax.top_k(-k2, nm)[0]
     else:
         k2 = _sort1(k2)[..., :nm]
@@ -264,14 +263,11 @@ def fb_checknode_list(
         the chain; FER equivalence is validated by CI overlap (see
         tests + benchmarks).  Built for wide rows (Ahmed dc=20: 19
         sequential merges/layer -> 6) where chain depth, not width,
-        dominates on TPU.
-      - "auto": "chain" — SETTLED by the round-5 on-device same-window
-        A/B (benchmarks/results_r5/queue.log ahmed_probe): at the very
-        shape tree was built for (Ahmed dc=20, F=128) the tree measures
-        6.57 s/iter vs the chain's 0.568 — 11.5x SLOWER steady-state
-        (the 2*dc-wide merges blow up the per-merge sort volume far more
-        than the depth reduction saves).  Tree stays available as an
-        explicit knob only.
+        might dominate.
+      - "auto": "chain".  On the device it was first tuned on, the tree's
+        2*dc-wide merges cost far more sort volume than the depth saved;
+        unmeasured on the H100.  Tree stays available as an explicit
+        knob only.
     """
     mode = os.environ.get("NBLDPC_LIST_FB", "auto")
     dc = bv.shape[-2]

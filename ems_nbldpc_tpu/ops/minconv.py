@@ -6,13 +6,13 @@ forward/backward recursion of ``CheckPassLogEMS``,
 ``/root/reference/bubble_decoder.c:72-305``, built from 2-input
 ``ElementaryStep`` merges).  The C code approximates each 2-input merge with a
 sequential 8-bubble extract-min loop (``bubble_decoder.c:316-593``) — a
-CPU-ism.  On TPU the same 2-input merge is a *dense tropical convolution*:
+CPU-ism.  Batched on an accelerator, the same 2-input merge is a *dense tropical convolution*:
 
     out[s] = min_a (A[a] + B[a ^ s])
 
 which is a superset of every bubble/L-bubble approximation (SURVEY.md §7.3):
 it examines all q^2 candidate pairs instead of a bubble-bounded subset, at
-perfectly regular VPU cost with zero data-dependent control flow.
+perfectly regular elementwise cost with zero data-dependent control flow.
 
 ``nm``-truncation semantics (EMS) are recovered by saturating inputs outside
 their best-``nm`` entries before the convolution and clamping outputs — see
@@ -30,9 +30,9 @@ import numpy as np
 INF = 1e9
 
 # elementary-combine implementation: "shuffle" (xor block swaps),
-# "gather" (take_along_axis), or "auto" (gather for small q where XLA
-# fuses it well; shuffle for q>=128 where per-element minor-dim gathers
-# collapse -- measured 15x+ slower on v5e-class devices).
+# "gather" (take_along_axis), or "auto" (gather for small q, shuffle for
+# q >= 128, where per-element minor-dim gathers were slow on the device
+# this was first tuned on; the threshold is unmeasured on the H100).
 MINCONV_IMPL = os.environ.get("NBLDPC_MINCONV", "auto")
 
 
@@ -112,9 +112,9 @@ def xor_gather(a: jax.Array, g: jax.Array) -> jax.Array:
     XOR-permutation by a per-row value ``g`` decomposes into log2(q)
     data-independent block swaps: for each bit b of g, swap lane blocks of
     stride 2^b.  Each swap is two static rolls + a static lane mask, plus
-    an elementwise select on the per-row bit — pure VPU work, which is what
-    a TPU wants instead of a per-element dynamic gather along the minor
-    dimension (measured 15-17x faster than take_along_axis on v5e shapes).
+    an elementwise select on the per-row bit — pure elementwise work
+    instead of a per-element dynamic gather along the minor dimension
+    (see ``MINCONV_IMPL`` for when it is chosen).
 
     a: [..., q]; g: [...] int32 (broadcastable to a.shape[:-1]).
     """

@@ -1,7 +1,7 @@
 """Syndrome-based EMS check node ("high speed, low latency NB-LDPC check
 node processing" family).
 
-TPU re-design of the reference's syndrome-CN architecture
+Batched re-design of the reference's syndrome-CN architecture
 (``/root/reference/syndrome_decoder.c:26-284`` and its config-table
 machinery at ``:1512-2371``; compiled-in but unreachable from the shipped
 binary — SURVEY.md §2.1/Appendix B, so parity here is behavioral/FER, not

@@ -1,4 +1,4 @@
-"""Monte-Carlo FER/BER harness — the TPU replacement for the reference's
+"""Monte-Carlo FER/BER harness — the batched replacement for the reference's
 ``main`` simulation loop (``/root/reference/NB_LDPC.c:250-511``) and the
 per-SNR process forking of ``start.sh``.
 
@@ -56,6 +56,8 @@ class SimResult:
     n: int = 0
     k: int = 0
     logq: int = 0
+    first_batch_s: float = 0.0     # wall time of batch 0, compile included
+    first_batch_frames: int = 0
 
     @property
     def fer(self) -> float:
@@ -81,6 +83,14 @@ class SimResult:
     def info_mbps(self) -> float:
         return self.frames_per_s * self.k * self.logq / 1e6
 
+    @property
+    def steady_frames_per_s(self) -> float:
+        """Frames/s over the batches after the first (which compiles);
+        NaN when only one batch ran."""
+        frames = self.frames - self.first_batch_frames
+        secs = self.elapsed_s - self.first_batch_s
+        return frames / secs if frames > 0 and secs > 0 else float("nan")
+
     def to_dict(self) -> dict:
         return dict(
             code=self.code_name, ebn0_db=self.config.ebn0_db,
@@ -89,6 +99,8 @@ class SimResult:
             fer=self.fer, ber=self.ber, fer_ci=list(self.fer_ci),
             avg_iters=self.avg_iters, frames_per_s=self.frames_per_s,
             info_mbps=self.info_mbps, elapsed_s=self.elapsed_s,
+            first_batch_s=self.first_batch_s,
+            steady_frames_per_s=self.steady_frames_per_s,
             schedule=self.config.decoder.schedule, cn=self.config.decoder.cn,
             nm=self.config.decoder.nm, offset=self.config.decoder.offset,
             max_iters=self.config.decoder.max_iters,
@@ -148,8 +160,8 @@ def make_codeword_fn(code: NBCode, cfg: SimConfig,
     """Returns (make_codeword(kinfo, pmat) -> [F, N] symbols, encoder,
     pmat).  The generator bit-matrix is threaded as a runtime argument —
     NOT a traced-in constant — because for DVB-T2-size codes it is GBs and
-    constant-embedding blows up compilation (and the remote-compile
-    transport).  Callers device_put it once and pass it per call."""
+    constant-embedding blows up compilation.  Callers device_put it once
+    and pass it per call."""
     f = cfg.frames_per_batch
     n, k, logq = code.n, code.k, code.logq
     if cfg.encode == "device":
@@ -162,7 +174,7 @@ def make_codeword_fn(code: NBCode, cfg: SimConfig,
         def make_codeword(kinfo, pmat):
             info_bits = jax.random.bernoulli(kinfo, 0.5, (f, k * logq))
             # bf16 matmul with f32 accumulation is exact for 0/1 operands
-            # and 5x faster on the MXU than f32
+            # (sums stay below 2^24) and runs on the tensor cores
             acc = jnp.dot(
                 info_bits.astype(jnp.bfloat16),
                 pmat.astype(jnp.bfloat16),
@@ -286,32 +298,47 @@ class MonteCarlo:
         return step
 
     def run(self, verbose: bool = False) -> SimResult:
-        cfg = self.cfg
-        totals = np.zeros(5, dtype=np.int64)
-        key = jax.random.PRNGKey(cfg.seed)
-        t0 = time.perf_counter()
-        batch_idx = 0
-        ebn0 = jnp.float32(cfg.ebn0_db)
-        while totals[0] < cfg.max_frames and totals[1] < cfg.stop_errors:
-            counters, _ = self.step(
-                jax.random.fold_in(key, batch_idx), ebn0, self._pmat
-            )
-            totals += np.asarray(counters, dtype=np.int64)
-            batch_idx += 1
-            if verbose:
-                fer = totals[1] / max(totals[0], 1)
-                print(
-                    f"\r<{totals[3]}> FER= {totals[1]} / {totals[0]} "
-                    f"= {fer:.3g} avg_it={totals[4]/max(totals[0],1):.2f}",
-                    end="", flush=True,
-                )
-        elapsed = time.perf_counter() - t0
-        if verbose:
-            print()
-        return SimResult(
-            frames=int(totals[0]), frame_errors=int(totals[1]),
-            bit_errors=int(totals[2]), undetected_errors=int(totals[3]),
-            iter_sum=int(totals[4]), elapsed_s=elapsed, config=cfg,
-            code_name=self.code.name, n=self.code.n, k=self.code.k,
-            logq=self.code.logq,
+        return run_batches(
+            lambda key, ebn0: self.step(key, ebn0, self._pmat)[0],
+            self.code, self.cfg, verbose=verbose,
         )
+
+
+def run_batches(step, code: NBCode, cfg: SimConfig,
+                verbose: bool = False) -> SimResult:
+    """Host accumulation loop with the stop-at-K-errors rule.
+
+    ``step(key, ebn0) -> counters [5]`` runs one batch (single device or
+    sharded); batch ``b`` draws from ``fold_in(PRNGKey(seed), b)``.  Each
+    batch's counters are read back before the next starts, so the first
+    batch's wall time (compile included) is recorded separately.
+    """
+    totals = np.zeros(5, dtype=np.int64)
+    key = jax.random.PRNGKey(cfg.seed)
+    ebn0 = jnp.float32(cfg.ebn0_db)
+    t0 = time.perf_counter()
+    first_s, first_frames = 0.0, 0
+    batch_idx = 0
+    while totals[0] < cfg.max_frames and totals[1] < cfg.stop_errors:
+        counters = step(jax.random.fold_in(key, batch_idx), ebn0)
+        totals += np.asarray(counters, dtype=np.int64)
+        if batch_idx == 0:
+            first_s, first_frames = time.perf_counter() - t0, int(totals[0])
+        batch_idx += 1
+        if verbose:
+            fer = totals[1] / max(totals[0], 1)
+            print(
+                f"\r<{totals[3]}> FER= {totals[1]} / {totals[0]} "
+                f"= {fer:.3g} avg_it={totals[4]/max(totals[0],1):.2f}",
+                end="", flush=True,
+            )
+    elapsed = time.perf_counter() - t0
+    if verbose:
+        print()
+    return SimResult(
+        frames=int(totals[0]), frame_errors=int(totals[1]),
+        bit_errors=int(totals[2]), undetected_errors=int(totals[3]),
+        iter_sum=int(totals[4]), elapsed_s=elapsed, config=cfg,
+        code_name=code.name, n=code.n, k=code.k, logq=code.logq,
+        first_batch_s=first_s, first_batch_frames=first_frames,
+    )

@@ -3,7 +3,7 @@
 The reference's only timing is ctime prints at start/end
 (``NB_LDPC.c:140-142,565-584``).  Here: wall-clock section timers that
 force device completion, and a thin wrapper over the JAX/XLA profiler for
-TPU trace capture.
+device trace capture.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""FER-curve parity vs the C reference (statistical, TPU-scale).
+"""FER-curve parity vs the C reference (statistical, accelerator-scale).
 
 C anchors measured from the reference binary (gcc -O3, /root/reference @
 Mat24_N48_M24, layered EMS, 10 iters, nm=16, offset=0.3, nbOper=32,
@@ -8,13 +8,13 @@ BPSK-AWGN, stop at 40 errors):
     Eb/N0 2.0 dB: FER = 40/725  = 0.0552
     Eb/N0 2.5 dB: FER = 40/5953 = 0.00672
 
-TPU-framework measurements (same operating point, this repo @ r1):
+Framework measurements (same operating point, this repo @ r1):
 
     1.5 dB: 833/4096  = 0.2034   2.0 dB: 438/8192 = 0.0535
     2.5 dB: 404/61440 = 0.00658
 
 Wilson CIs overlap at every point. The fast test below re-checks one point
-with a small budget; the slow/tpu test re-runs the full comparison.
+with a small budget; the gpu-marked tests re-run the full comparison.
 """
 import numpy as np
 import pytest
@@ -45,9 +45,9 @@ def test_fer_overlaps_reference_at_2db():
     )
 
 
-@pytest.mark.tpu
+@pytest.mark.gpu
 @pytest.mark.parametrize("ebn0", [1.5, 2.0, 2.5])
-def test_fer_overlaps_reference_full(ebn0):
+def test_fer_overlaps_reference_full(ebn0, gpu):
     r = _run(ebn0, 65536, 8192)
     k, n = C_ANCHORS[ebn0]
     assert overlapping(r.frame_errors, r.frames, k, n), (
@@ -55,10 +55,10 @@ def test_fer_overlaps_reference_full(ebn0):
     )
 
 
-@pytest.mark.tpu
-def test_mat212_beats_reference():
+@pytest.mark.gpu
+def test_mat212_beats_reference(gpu):
     """High-dc code (dc=12): the reference's nbOper=24 bubble budget starves
-    the CN; the TPU superset CN is measurably better. C anchor (essai_ubs
+    the CN; the superset CN is measurably better. C anchor (essai_ubs
     `10000 10 Mat212_N96_M16 4.0 25 0 24`, test.cbp Release config):
     FER = 40/7368 = 0.00543, avg_it 1.58.
     Measured here (r1): 15/8192 = 0.00183, avg_it 1.51."""

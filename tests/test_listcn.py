@@ -6,6 +6,7 @@ import pytest
 
 from ems_nbldpc_tpu.models import registry
 from ems_nbldpc_tpu.decoder.graph import DeviceGraph
+from ems_nbldpc_tpu.golden import list_merge_ref
 from ems_nbldpc_tpu.ops.listcn import (
     BIG, expand_list, fb_checknode_list, list_combine, mul_cols,
     neutral_list, rotate_ids, saturate_list,
@@ -31,36 +32,6 @@ def brute_merge(av, ag, bv, bg, nm):
     return out_v, out_g
 
 
-def brute_merge_budget(av, ag, bv, bg, nm, nboper):
-    """nbOper-budgeted merge, staircase semantics: all candidates with
-    (i+1)(j+1) <= nboper examined in ascending order with GF dedup — the
-    superset of the reference's extract-min budget
-    (bubble_decoder.c:470-562)."""
-    cands = []
-    for i in range(len(av)):
-        for j in range(len(bv)):
-            if (i + 1) * (j + 1) <= nboper:
-                # device path quantizes candidate values to bf16 (the
-                # message storage dtype) to pack (GF, value) sort keys
-                v = float(jnp.bfloat16(min(av[i] + bv[j], float(BIG))))
-                cands.append((v, int(ag[i]) ^ int(bg[j])))
-    cands.sort(key=lambda t: (t[0], t[1]))
-    out_v, out_g, seen = [], [], set()
-    for v, g in cands:
-        if g in seen or v >= float(BIG):
-            continue
-        seen.add(g)
-        out_v.append(v)
-        out_g.append(g)
-        if len(out_v) == nm:
-            break
-    ov = np.full(nm, float(BIG))
-    og = np.zeros(nm, np.int64)
-    ov[: len(out_v)] = out_v
-    og[: len(out_g)] = out_g
-    return ov, og
-
-
 @pytest.mark.parametrize("nboper", [0, 12, 40])
 def test_list_combine_vs_brute(nboper):
     rng = np.random.default_rng(0)
@@ -80,8 +51,8 @@ def test_list_combine_vs_brute(nboper):
         if nboper <= 0:
             ev, eg = brute_merge(av[r], ag[r], bv[r], bg[r], nm)
         else:
-            ev, eg = brute_merge_budget(av[r], ag[r], bv[r], bg[r], nm,
-                                        nboper)
+            ev, eg = list_merge_ref(av[r], ag[r], bv[r], bg[r], nm,
+                                    nboper, float(BIG))
         filled = ev < float(BIG) / 2
         np.testing.assert_allclose(ov[r][filled], ev[filled], rtol=1e-5)
         np.testing.assert_array_equal(og[r][filled], eg[filled])

@@ -2,9 +2,12 @@ import jax
 import numpy as np
 
 from ems_nbldpc_tpu.decoder.api import DecoderConfig
-from ems_nbldpc_tpu.models import registry
+from ems_nbldpc_tpu.models.code import random_regular
 from ems_nbldpc_tpu.parallel.mesh import make_mesh, run_sharded
 from ems_nbldpc_tpu.sim.mc import SimConfig
+
+# GF(64), N=48, (2,4)-regular: the shape of the reference's Mat24_N48_M24
+CODE = random_regular(48, 24, 64, dv=2, seed=1)
 
 
 def test_mesh_has_8_virtual_devices():
@@ -12,7 +15,7 @@ def test_mesh_has_8_virtual_devices():
 
 
 def test_sharded_counters_match_expected_scale():
-    code = registry.get_code("Mat24_N48_M24")
+    code = CODE
     cfg = SimConfig(
         ebn0_db=2.0, frames_per_batch=32, max_frames=8 * 32,
         stop_errors=10**9,
@@ -39,7 +42,7 @@ def test_sharded_counters_exactly_match_sequential_devices():
     from ems_nbldpc_tpu.parallel.mesh import _shardable, sharded_batch_step
     from ems_nbldpc_tpu.sim.mc import make_batch_step
 
-    code = registry.get_code("Mat24_N48_M24")
+    code = CODE
     cfg = SimConfig(ebn0_db=1.5, frames_per_batch=32, max_frames=256,
                     stop_errors=10**9,
                     decoder=DecoderConfig(max_iters=8, schedule="flooding",
@@ -60,21 +63,6 @@ def test_sharded_counters_exactly_match_sequential_devices():
         tot1 += np.asarray(counters, dtype=np.int64)
     assert tot1[1] > 0          # the point has real errors to drop
     np.testing.assert_array_equal(tot8, tot1)
-
-
-def test_2d_mesh_hierarchical_reduction():
-    from ems_nbldpc_tpu.parallel.mesh import make_mesh_2d, sharded_batch_step_2d
-
-    code = registry.get_code("Mat24_N48_M24")
-    cfg = SimConfig(
-        ebn0_db=2.0, frames_per_batch=16,
-        decoder=DecoderConfig(max_iters=4, schedule="flooding", cn="minsum"),
-    )
-    mesh = make_mesh_2d(2, 4)   # 2 "hosts" x 4 "chips" on the virtual mesh
-    step = sharded_batch_step_2d(code, cfg, mesh)
-    counters = np.asarray(step(jax.random.PRNGKey(0)))
-    assert counters[0] == 16 * 8
-    assert counters[4] > 0      # iteration counts accumulated
 
 
 def test_sharded_compressed_list_ems_gf256():
@@ -104,7 +92,7 @@ def test_sharded_step_ebn0_is_traced():
 
     from ems_nbldpc_tpu.parallel.mesh import sharded_batch_step
 
-    code = registry.get_code("Mat24_N48_M24")
+    code = CODE
     cfg = SimConfig(
         ebn0_db=0.5, frames_per_batch=64, stop_errors=10**9,
         decoder=DecoderConfig(max_iters=4, schedule="flooding", cn="minsum"),
